@@ -1,0 +1,21 @@
+"""Built-in `OpSpec` registrations.  This slice ships ``morph``: grayscale
+reconstruction-by-dilation (paper §2.1), drained by the morph tile kernel."""
+
+from __future__ import annotations
+
+from repro_torch.ops.registry import OpSpec, register_op
+
+
+def register_builtin_ops() -> None:
+    from repro_torch.kernels.ops import (tile_solver_morph,
+                                         tile_solver_morph_batched)
+    from repro_torch.morph.ops import MorphReconstructOp
+
+    register_op("morph", OpSpec(
+        op_cls=MorphReconstructOp,
+        factory=MorphReconstructOp,
+        finalize=lambda op, out: out["J"],
+        kernel_solver=lambda op, max_iters:
+            tile_solver_morph(op.connectivity, max_iters),
+        kernel_batch_solver=lambda op, max_iters:
+            tile_solver_morph_batched(op.connectivity, max_iters)))
