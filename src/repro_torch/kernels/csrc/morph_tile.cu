@@ -15,9 +15,10 @@
 // changed && it < max_iters.
 //
 // Buffers: J double-buffered in shared memory (each round reads the
-// pre-round plane), I and valid beside it: 13 bytes a cell, so a 2-D block
-// fits up to T = 128 (130^2 cells, 219,700 B) and a 3-D block up to T = 16
-// within the 232,448 B a CTA may use.  A 2-D block is a 3-D one of depth 1;
+// pre-round plane), I and valid beside it: 13 bytes a cell, so within the
+// 232,448 B a CTA may use a 2-D block fits up to T = 131 (133^2 cells,
+// 229,957 B; the engine's T = 128 takes 219,700 B) and a 3-D block up to
+// T = 24 (26^3 cells, 228,488 B).  A 2-D block is a 3-D one of depth 1;
 // the offset table arrives by value, so conn4, conn8, conn6, conn18 and
 // conn26 share one kernel.
 //

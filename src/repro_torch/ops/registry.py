@@ -30,6 +30,9 @@ class OpSpec:
         tile_solver`` factories for the ``tiled-kernel`` engine; the solver
         contract is ``block -> (block, unconverged)``, batched blocks carry
         a leading (K,) dim.
+    kernel_queue_solver / kernel_queue_batch_solver : ``f(op, max_iters,
+        queue_capacity) -> tile_solver`` factories for the same engine
+        under ``kernel_queue=True`` (the drains with the in-kernel queue).
     """
 
     op_cls: type
@@ -39,6 +42,8 @@ class OpSpec:
     finalize: Optional[Callable] = None
     kernel_solver: Optional[Callable] = None
     kernel_batch_solver: Optional[Callable] = None
+    kernel_queue_solver: Optional[Callable] = None
+    kernel_queue_batch_solver: Optional[Callable] = None
 
     def make_op(self, connectivity: Optional[Union[int, str]] = None):
         """Build the op, forwarding ``connectivity`` only when given; an

@@ -6,7 +6,9 @@
   "frontier"       core.frontier.run_dense  (E1)         Naive/PF queue
   "tiled"          core.tiles.run_tiled     (E2)         TQ/BQ/GBQ hierarchy
   "tiled-kernel"   run_tiled + the CUDA drain kernel     BQ drain in shared
-                   (kernels/csrc/morph_tile.cu)          memory
+                   (kernels/csrc/morph_tile.cu; with     memory (+ the
+                   kernel_queue=True                     in-block queue,
+                   kernels/csrc/morph_tile_queued.cu)    §3.2, Fig. 7)
 
 ``"tiled-kernel"`` is the counterpart of the reference's ``"tiled-pallas"``.
 ``engine="auto"`` (the reference's cost-model choice) is a later slice and
@@ -25,6 +27,7 @@ import torch
 from repro_torch.core.device import as_tensor, resolve_device
 from repro_torch.core.frontier import run_dense
 from repro_torch.core.tiles import run_tiled
+from repro_torch.kernels.ops import default_kernel_queue_capacity
 from repro_torch.ops import get_op, list_ops, spec_for
 
 ENGINES = ("sweep", "frontier", "tiled", "tiled-kernel")
@@ -60,8 +63,8 @@ class SolveStats:
     tile: Optional[int] = None
     queue_capacity: Optional[int] = None
     drain_batch: Optional[int] = None        # blocks drained per chunk
-    kernel_queue: bool = False               # in-kernel queue (later slice)
-    kernel_queue_capacity: Optional[int] = None
+    kernel_queue: bool = False               # in-kernel queue (queued drains)
+    kernel_queue_capacity: Optional[int] = None  # resolved local-queue slots
     n_devices: int = 1
     predicted_cost: Optional[float] = None
     autotuned: bool = False
@@ -80,6 +83,8 @@ class EngineConfig:
     tile: Optional[int] = None
     queue_capacity: Optional[int] = None
     drain_batch: Optional[int] = None
+    kernel_queue: bool = False
+    kernel_queue_capacity: Optional[int] = None  # None = the block default
 
 
 def _run_dense_engine(op, state, cfg, max_rounds):
@@ -97,32 +102,48 @@ def _tiled_cfg_defaults(cfg: EngineConfig) -> Tuple[int, int, int]:
     return tile, cap, drain_batch
 
 
-def _kernel_solvers(op, max_iters: int, batched: bool, engine: str):
+def _kernel_solvers(op, max_iters: int, batched: bool, engine: str,
+                    kq_cap: Optional[int] = None):
+    """The op's kernel tile solvers; the queued ones when ``kq_cap`` (the
+    resolved in-kernel queue capacity) is given."""
     spec = spec_for(op)
-    if spec is None or spec.kernel_solver is None:
+    if kq_cap is None:
+        what = "kernel tile solver"
+        single = None if spec is None else spec.kernel_solver
+        batch = None if spec is None else spec.kernel_batch_solver
+        args = (op, max_iters)
+    else:
+        what = ("queued kernel tile solver (OpSpec.kernel_queue_solver, "
+                "required by kernel_queue=True)")
+        single = None if spec is None else spec.kernel_queue_solver
+        batch = None if spec is None else spec.kernel_queue_batch_solver
+        args = (op, max_iters, kq_cap)
+    if single is None:
         raise ValueError(
-            f"op {type(op).__name__} has no kernel tile solver registered, "
+            f"op {type(op).__name__} has no {what} registered, "
             f"which engine {engine!r} requires; registered ops: "
             f"{list_ops()}.  Pick the op-generic engine 'tiled' instead.")
-    solver = spec.kernel_solver(op, max_iters)
     batched_solver = None
     if batched:
-        if spec.kernel_batch_solver is None:
-            raise ValueError(f"op {type(op).__name__} has no batched kernel "
-                             f"tile solver; use drain_batch=1")
-        batched_solver = spec.kernel_batch_solver(op, max_iters)
-    return solver, batched_solver
+        if batch is None:
+            raise ValueError(f"op {type(op).__name__} has no batched "
+                             f"{what}; use drain_batch=1")
+        batched_solver = batch(*args)
+    return single(*args), batched_solver
 
 
 def _run_tiled_engine(op, state, cfg, max_rounds):
-    solver = batched_solver = None
+    solver = batched_solver = kq_cap = None
     tile, cap, drain_batch = _tiled_cfg_defaults(cfg)
     if cfg.engine == "tiled-kernel":
         # Thread the engine's prod(T_i+2) geodesic bound into the kernel: a
         # drain cut off there must re-queue, not pass as converged.
         max_iters = (tile + 2) ** op.ndim
-        solver, batched_solver = _kernel_solvers(op, max_iters,
-                                                 drain_batch > 1, cfg.engine)
+        if cfg.kernel_queue:
+            kq_cap = (cfg.kernel_queue_capacity
+                      or default_kernel_queue_capacity((tile + 2,) * op.ndim))
+        solver, batched_solver = _kernel_solvers(
+            op, max_iters, drain_batch > 1, cfg.engine, kq_cap)
     out, st = run_tiled(op, state, tile=tile, queue_capacity=cap,
                         max_outer_rounds=max_rounds, tile_solver=solver,
                         drain_batch=drain_batch,
@@ -132,7 +153,9 @@ def _run_tiled_engine(op, state, cfg, max_rounds):
                            overflow_events=st.overflow_events,
                            tiles_requeued=st.tiles_requeued,
                            tile=tile, queue_capacity=cap,
-                           drain_batch=drain_batch)
+                           drain_batch=drain_batch,
+                           kernel_queue=cfg.kernel_queue,
+                           kernel_queue_capacity=kq_cap)
 
 
 _ENGINE_RUNNERS = {
@@ -148,6 +171,8 @@ def solve(op, state, *, engine: str = "auto",
           tile: Optional[int] = None,
           queue_capacity: Optional[int] = None,
           drain_batch: Optional[int] = None,
+          kernel_queue: bool = False,
+          kernel_queue_capacity: Optional[int] = None,
           max_rounds: int = 1_000_000,
           device=None) -> Tuple[Any, SolveStats]:
     """Run ``op`` on ``state`` to its fixed point; return (state, SolveStats).
@@ -157,6 +182,11 @@ def solve(op, state, *, engine: str = "auto",
     engine : one of :data:`ENGINES`.
     tile, queue_capacity, drain_batch : the tiled engines' blocking, queue
         slots and blocks drained per chunk (defaults as in the reference).
+    kernel_queue : ``"tiled-kernel"`` only -- drain each block through the
+        queued kernel: push rounds from the block's improved pixels, a
+        dense round when the queue overflows ``kernel_queue_capacity``
+        (None: ``kernels.ops.default_kernel_queue_capacity`` of the halo
+        block).  Planes and counters equal the dense drain's.
     device : where to run; None means ``"cuda"``.  The state's tensors (or
         numpy arrays) are moved there.  Raises ``RuntimeError`` on a host
         without CUDA unless ``device="cpu"``.
@@ -167,6 +197,12 @@ def solve(op, state, *, engine: str = "auto",
             f"(ROADMAP.md queue A, item 12); pick one of {ENGINES}")
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    if (kernel_queue or kernel_queue_capacity is not None) \
+            and engine != "tiled-kernel":
+        raise ValueError(
+            "kernel_queue / kernel_queue_capacity apply to the "
+            f"'tiled-kernel' engine only, not {engine!r}: the in-kernel "
+            "queue lives inside its tile drain kernels")
     dev = resolve_device(device)
     if isinstance(op, str):
         spec = get_op(op)
@@ -179,7 +215,8 @@ def solve(op, state, *, engine: str = "auto",
             "connectivity= applies to by-name solve() calls only; construct "
             "the op instance with the desired connectivity instead")
     state = {k: as_tensor(v, dev) for k, v in state.items()}
-    cfg = EngineConfig(engine, tile, queue_capacity, drain_batch)
+    cfg = EngineConfig(engine, tile, queue_capacity, drain_batch,
+                       bool(kernel_queue), kernel_queue_capacity)
     t0 = time.monotonic()
     out, st = _ENGINE_RUNNERS[engine](op, state, cfg, max_rounds)
     if dev.type == "cuda":
